@@ -1,17 +1,17 @@
 """Test env: force JAX onto a virtual 8-device CPU mesh before jax imports.
 
-Real-TPU benchmarking happens in bench.py (no conftest); the test suite runs
-everywhere and exercises the multi-chip sharding logic on virtual devices.
+The tests run on the CPU and exercise the multi-device sharding logic on
+virtual devices; the GPU path is checked by chip_smoke.py and timed by
+bench.py (tests that need the card carry the ``gpu`` marker).
 """
 
 import os
 
-# Force (not setdefault: the shell may carry JAX_PLATFORMS=<tpu-platform>)
-# — the suite must see the virtual 8-device CPU mesh. The env var alone is
-# not enough: an installed TPU PJRT plugin can still win the default-backend
-# race, so pin it through jax.config as well.
+# Force (not setdefault: the shell may carry JAX_PLATFORMS=cuda) — the
+# suite must see the virtual 8-device CPU mesh; pinned through jax.config
+# as well, before any backend initializes.
 os.environ["JAX_PLATFORMS"] = "cpu"
-# In-process CLI tests call cli.main._setup_jax, which would otherwise
+# In-process CLI tests call cli.main._configure_jax, which would otherwise
 # enable the persistent compile cache for the REST of the suite (global,
 # order-dependent state — and jaxlib 0.9's CPU executable.serialize() has
 # segfaulted writing large cache entries mid-suite). Tests never need it.

@@ -1,8 +1,8 @@
 """Determinism: identical bytes across runs, paths, and device counts.
 
-The TPU-native replacement for race detection (SURVEY §5): XLA owns the
-scheduling, so the property to enforce is that every execution of the
-encoder over any device layout yields the same archive bytes.
+The replacement for race detection (SURVEY §5): XLA owns the scheduling,
+so the property to enforce is that every execution of the encoder over
+any device layout yields the same archive bytes.
 """
 
 import jax
@@ -33,10 +33,17 @@ def test_all_paths_agree():
     assert ops.encode(frames).to_bytes() == ref.to_bytes()
     if ncodec.available():
         assert ncodec.encode(frames).to_bytes() == ref.to_bytes()
-    from trpx_tpu.ops import pallas_pack
+    from trpx_tpu.runtime.stream import StreamingEncoder
 
-    assert pallas_pack.encode(frames, interpret=True).to_bytes() == \
-        ref.to_bytes()
+    # the streaming encoder's optimistic-capacity tree, same bytes
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as td:
+        enc = StreamingEncoder(Path(td) / "s.trpx", nvalues=200,
+                               dtype=np.uint16, backend="device")
+        enc.add_frames(frames)
+        assert enc.finalize().read_bytes() == ref.to_bytes()
 
 
 def test_device_count_invariance():

@@ -119,10 +119,10 @@ def test_shard_crash_recovery(tmp_path):
 
 
 def test_recover_shard_staged_shape(tmp_path):
-    """recover_shard shares the main path's staging contract — n_staged
-    padding + manifest-stored dtype (VERDICT r4 weak #3) — proven at a
-    flagship shape where n_staged != n_padded (512²: 270,336 staged
-    vs 262,152 tree rows), single-process."""
+    """recover_shard shares the main path's padding contract — frames
+    padded to the block grid (n_padded) + manifest-stored dtype — proven
+    at the flagship 512² shape, whose last block is partial (262,144
+    values in 262,152 block slots), single-process."""
     from trpx_tpu.ops.coding import FrameSpec
     from trpx_tpu.parallel import ShardedCodec, default_mesh
     from trpx_tpu.parallel.distributed import (
@@ -170,7 +170,7 @@ def test_recover_shard_staged_shape(tmp_path):
 
 
 def test_streaming_shard_resume(tmp_path):
-    """Streaming x distributed composition (VERDICT r4 ask #7): two
+    """Streaming x distributed composition: two
     processes x 4 devices stream 32x512^2 frames in 8-frame chunks into
     ONE shared file via StreamingShardEncoder; a mid-stream kill (hard
     os._exit right after the chunk-2 checkpoint) loses nothing past the

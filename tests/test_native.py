@@ -186,7 +186,7 @@ def test_partial_blocks_multiframe():
 def test_tile_tables_matches_numpy():
     """Native prepass tables == the numpy block_bits/level-maxima path
     (bit lengths per Terse.hpp:517-535's header chain + width*count)."""
-    from trpx_tpu.ops import pallas_unpack as pu
+    from trpx_tpu.ops import coding as pu
     from trpx_tpu.ops.coding import FrameSpec
 
     rng = np.random.default_rng(11)
@@ -213,16 +213,23 @@ def test_tile_tables_rejects_bad_args():
         native.tile_tables(w, 96, 12, 48)  # Tb not a power of two
 
 
-def test_tile_windows_hostile_offsets():
-    """Out-of-range window offsets (hostile sidecar tables) must produce
-    zero windows, not OOB reads / negative wraps."""
-    from trpx_tpu.ops.pallas_unpack import _tile_windows
+def test_build_falls_back_to_system_compiler(tmp_path, monkeypatch):
+    """A $CXX that cannot build OpenMP code (no libgomp in its
+    toolchain) must not cost the native runtime: g++ is tried next."""
+    monkeypatch.setenv("TRPX_NATIVE_CACHE", str(tmp_path))
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    so = native._build()
+    assert so is not None and so.exists() and so.parent == tmp_path
+    assert [p.name for p in tmp_path.iterdir()] == [so.name]
 
-    words = np.arange(1, 257, dtype=np.uint32).reshape(2, 128)
-    ws = np.array([[0, -5], [1000, 120]], dtype=np.int64)
-    out = _tile_windows(words, ws, 16)
-    np.testing.assert_array_equal(out[0, 0], words[0, :16])
-    assert not out[0, 1].any()          # negative offset -> zeros
-    assert not out[1, 0].any()          # past-the-end offset -> zeros
-    np.testing.assert_array_equal(out[1, 1, :8], words[1, 120:])
-    assert not out[1, 1, 8:].any()      # tail zeroed
+
+def test_build_failure_warns_and_cleans_up(tmp_path, monkeypatch):
+    from trpx_tpu import _fallback
+
+    monkeypatch.setenv("TRPX_NATIVE_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setenv("CXX", "false")
+    monkeypatch.setenv("PATH", str(tmp_path))  # no g++ either
+    monkeypatch.setattr(_fallback, "_seen", set())
+    with pytest.warns(RuntimeWarning, match="native.build"):
+        assert native._build() is None
+    assert list((tmp_path / "cache").iterdir()) == []

@@ -1,6 +1,7 @@
 """Device-path (jnp) codec vs the normative format layer.
 
-Runs on the virtual CPU backend (conftest); the same code compiles for TPU.
+Runs on the virtual CPU backend (conftest); the same code compiles for
+the GPU.
 """
 
 import numpy as np
@@ -105,7 +106,7 @@ def test_device_rejects_64bit():
 
 def test_device_decode_narrowing_clamps_like_host():
     """Fields wider than the target dtype must CLAMP, not wrap
-    (Bit_pointer.hpp:747-762; ADVICE r1: device astype wrapped)."""
+    (Bit_pointer.hpp:747-762; a device astype would wrap)."""
     vals = np.array([[40000, -40000, 123, -1, 32767, -32768]], np.int32)
     arc = ops.encode(vals)
     host = fmt.decode(arc, np.int16)
@@ -122,18 +123,17 @@ def test_device_decode_narrowing_clamps_like_host():
 
 
 def test_pallas_routing_has_lower_bound():
-    """Frames under one full lane row of blocks (tree_rows < 128) must
-    NOT route to the Pallas kernels: Mosaic cannot lower the kernels'
-    lane rolls over a size-1 axis (found by /verify on the real chip —
-    api.compress of a 2x2 int16 crashed in lowering). They take the jnp
-    tree instead."""
-    from trpx_tpu.ops.coding import FrameSpec
+    """Every frame size takes the one device route, down to a frame of
+    fewer blocks than one tree level pairs (a 2x2 int16 image crashed a
+    layout-bound kernel once); the device batch is padded to the block
+    grid and nothing else."""
+    from trpx_tpu.ops.coding import FrameSpec, _pad_batch
 
     tiny = FrameSpec.for_dtype(4, np.int16)
-    assert not tiny.pallas_ok and not tiny.pallas_ok_decode
-    # one lane row exactly (128 blocks of 12) is allowed again
-    ok = FrameSpec.for_dtype(128 * 12, np.uint16)
-    assert ok.pallas_ok and ok.pallas_ok_decode
+    assert (tiny.nb, tiny.n_padded, tiny.tree_rows) == (1, 12, 1)
+    padded = _pad_batch(np.ones((3, 4), np.int16), tiny)
+    assert padded.shape == (4, 12) and not padded[3].any()
+    assert not padded[:3, 4:].any()
     # the full device api path round-trips a tiny frame
     x = np.array([[-3, 4], [2, 1]], dtype=np.int16)
     arc = ops.encode(x.reshape(1, -1))

@@ -141,72 +141,6 @@ def test_measured_encode_bit_identical():
         C.measured_spec = orig
 
 
-def test_choose_schedule_decode_exact_interpret():
-    """Pallas decode driven by a measured schedule tuple is value-exact
-    (interpreter mode on the CPU mesh)."""
-    import jax.numpy as jnp
-
-    from trpx_tpu.ops.coding import walk_archive
-    from trpx_tpu.ops.pallas_unpack import (
-        choose_schedule,
-        decode_batch_pallas,
-    )
-
-    rng = np.random.default_rng(6)
-    n = 256 * 256
-    fr = rng.poisson(3.0, size=(2, n)).astype(np.uint16)
-    fr[rng.random((2, n)) < 0.001] = 60000
-    arch = ops.encode(fr, cap_ratio="measured")
-    spec = FrameSpec.for_dtype(n, np.uint16)
-    widths, _p, words = walk_archive(arch, spec)
-    sched = choose_schedule(spec, widths)
-    P = spec.tree_rows
-    assert isinstance(sched, tuple) and len(sched) == P.bit_length()
-    from trpx_tpu.ops.pallas_unpack import flatten_decoded
-
-    out = flatten_decoded(
-        jax.device_get(
-            decode_batch_pallas(
-                spec, jnp.asarray(words), jnp.asarray(widths), True, sched
-            )
-        ), n)
-    assert np.array_equal(out.astype(np.uint16), fr)
-
-
-@pytest.mark.parametrize("dt,hot", [
-    (np.uint8, 250), (np.int16, -30000), (np.uint32, 3_000_000_000),
-])
-def test_measured_schedule_dtypes_interpret(dt, hot):
-    """Measured-schedule Pallas decode is value-exact for every device
-    dtype family (interpret mode)."""
-    import jax.numpy as jnp
-
-    from trpx_tpu.ops.coding import walk_archive
-    from trpx_tpu.ops.pallas_unpack import (
-        choose_schedule,
-        decode_batch_pallas,
-    )
-
-    rng = np.random.default_rng(9)
-    n = 256 * 256
-    fr = rng.poisson(3.0, size=(2, n)).astype(dt)
-    fr[rng.random((2, n)) < 0.001] = hot
-    arch = ops.encode(fr, cap_ratio="measured")
-    assert arch.to_bytes() == pycodec.encode(list(fr)).to_bytes()
-    spec = FrameSpec.for_dtype(n, dt)
-    widths, _p, words = walk_archive(arch, spec)
-    sched = choose_schedule(spec, widths)
-    from trpx_tpu.ops.pallas_unpack import flatten_decoded
-
-    out = flatten_decoded(
-        jax.device_get(
-            decode_batch_pallas(
-                spec, jnp.asarray(words), jnp.asarray(widths), True, sched
-            )
-        ), n)
-    assert np.array_equal(out.astype(dt), fr)
-
-
 def test_measured_schedule_clustered_hot_pixels():
     """Bragg-like CLUSTERED hot pixels concentrate worst-case blocks in
     one subtree — the fixed ratio buckets' weak spot; measured schedules

@@ -62,11 +62,10 @@ def test_sharded_partial_blocks_and_hot_pixels():
 
 
 def test_measured_schedule_path_taken(recwarn):
-    """The measured-capacity prepass must actually engage on the CPU
-    backend (VERDICT r3 weak #6): a silent fallback to worst-case
-    capacities would only show up as an unexplained perf drop, so
-    ShardedCodec._measured now warns when it degrades — assert the happy
-    path produces a real schedule and NO fallback warning."""
+    """The measured-capacity prepass must actually engage: a silent
+    fallback to worst-case capacities would only show up as an
+    unexplained perf drop, so ShardedCodec._measured has no fallback —
+    assert the happy path produces a real schedule and no warning."""
     import warnings
 
     rng = np.random.default_rng(3)
@@ -92,8 +91,7 @@ def test_measured_schedule_path_taken(recwarn):
 def test_sharded_flagship_shape_byte_identity():
     """512x512 u16 (the flagship shape) sharded over the 8-device CPU
     mesh: archive byte-identical to the single-device encoder and decode
-    pixel-exact (VERDICT r3 weak #5 — previously validated only by a
-    tool run on the real chip)."""
+    pixel-exact."""
     rng = np.random.default_rng(11)
     n = 512 * 512
     frames = rng.poisson(3.0, size=(8, n)).astype(np.uint16)
@@ -122,3 +120,49 @@ def test_sharded_codec_reuse_and_offsets():
     assert last_end == arch.meta.memory_size
     out = codec.decode(arch, np.uint16)
     np.testing.assert_array_equal(out, frames)
+
+
+# ------------------------------------------------ launcher environment ---
+
+
+@pytest.fixture
+def init_calls(monkeypatch):
+    """Record jax.distributed.initialize's arguments (no real runtime)."""
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+              "JAX_PROCESS_ID", "JAX_LOCAL_DEVICE_IDS"):
+        monkeypatch.delenv(k, raising=False)
+    return calls
+
+
+def _launcher_env(monkeypatch, pid=2):
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:12345")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+    monkeypatch.setenv("JAX_PROCESS_ID", str(pid))
+
+
+@pytest.mark.parametrize("ids,want", [("2", [2]), ("0,1", [0, 1])])
+def test_init_from_env_pins_local_devices(init_calls, monkeypatch, ids, want):
+    """One process per card: JAX_LOCAL_DEVICE_IDS reaches
+    jax.distributed.initialize, so the process opens only its card."""
+    from trpx_tpu.parallel.distributed import init_from_env
+
+    _launcher_env(monkeypatch)
+    monkeypatch.setenv("JAX_LOCAL_DEVICE_IDS", ids)
+    assert init_from_env() is True
+    assert init_calls == [dict(coordinator_address="localhost:12345",
+                               num_processes=4, process_id=2,
+                               local_device_ids=want)]
+
+
+def test_init_from_env_unpinned_and_absent(init_calls, monkeypatch):
+    """No pin: the process keeps every local device (one process per
+    host); no launcher environment: no runtime at all."""
+    from trpx_tpu.parallel.distributed import init_from_env
+
+    assert init_from_env() is False and init_calls == []
+    _launcher_env(monkeypatch, pid=0)
+    assert init_from_env() is True
+    assert init_calls[-1]["local_device_ids"] is None

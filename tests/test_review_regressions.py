@@ -88,8 +88,9 @@ def test_push_back_dim_mismatch_rejected():
 
 
 def test_iter_decode_passes_schedule_as_ratio(monkeypatch, tmp_path):
-    """The cross-chunk joined schedule must reach the decoder's ratio
-    parameter, not its (deleted) poffs slot."""
+    """Every chunk of the device pipeline reaches the split tree with the
+    chunk's full (C, W) word buffer and (C, nb) uint8 width table, and no
+    payload-offset table (the tree derives offsets from the widths)."""
     from trpx_tpu.runtime import stream as stream_mod
 
     rng = np.random.default_rng(8)
@@ -101,27 +102,24 @@ def test_iter_decode_passes_schedule_as_ratio(monkeypatch, tmp_path):
     seen = []
     from trpx_tpu.ops import coding
 
-    real = coding._best_decoder()
+    real = coding.decode_batch_device
 
-    def spy():
-        def run(spec, words, widths, poffs, ratio=None):
-            seen.append((poffs, ratio))
-            return real(spec, words, widths, poffs, ratio)
-        return run
+    def spy(spec, words, widths, *rest):
+        seen.append((words.shape, widths.shape, widths.dtype, rest))
+        return real(spec, words, widths, *rest)
 
-    monkeypatch.setattr(coding, "_best_decoder", spy)
+    monkeypatch.setattr(coding, "decode_batch_device", spy)
     # this pins DEVICE-pipeline plumbing: force iter_decode past the
-    # cpu-backend host shortcut (which never calls the device decoder)
-    import trpx_tpu.api as api_mod
-
-    monkeypatch.setattr(api_mod, "_ACCEL_BACKEND", True)
+    # auto-route's host shortcut (which never calls the device decoder)
     out = np.concatenate(
         [np.asarray(c) for c in stream_mod.iter_decode(
-            p, np.uint16, chunk_frames=3)])
+            p, np.uint16, chunk_frames=3, device=True)])
     np.testing.assert_array_equal(out[:, :1000], stack)
-    assert seen, "decoder was never called"
-    for poffs, ratio in seen:
-        assert poffs is None
+    assert len(seen) == 2, "one device call per chunk"
+    for wshape, dshape, ddtype, rest in seen:
+        assert wshape[0] == dshape[0] == 3
+        assert dshape[1] == -(-1000 // 12) and ddtype == np.uint8
+        assert rest == ()
 
 
 def test_hostile_sidecar_overclaiming_widths_rejected(tmp_path):

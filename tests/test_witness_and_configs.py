@@ -167,7 +167,7 @@ def test_config_movie_stack_streamed(tmp_path):
 
 def test_shipped_reader_tool():
     """tools/trpx_reader.py — the standalone stdlib-only reader artifact
-    (Fiji/Jython-compatible witness, VERDICT r3 missing #1) — decodes
+    (Fiji/Jython-compatible witness) — decodes
     our archives exactly: unsigned, signed, multi-frame, partial blocks,
     zero runs."""
     import importlib.util

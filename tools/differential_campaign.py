@@ -14,14 +14,9 @@ value distribution) and asserts:
   encoder's output (oracle shim, built on demand like tests/conftest).
 
 Usage:  python tools/differential_campaign.py [n_trials] [--device]
-        python tools/differential_campaign.py --smoke   (on the chip)
 Prints progress every 250 trials; exits nonzero on the first mismatch
-with a full repro (seed + parameters).
-
---smoke runs the FIXED seeded trial list (SMOKE_TRIALS) on the device:
-the mandatory <2-minute gate after any kernel-structure change, covering
-every shape class in the round-4 regression ledger (S==1 grids, tiled,
-routing frontier, flagship). Wired first in tools/tpu_revalidate.sh.
+with a full repro (seed + parameters). The fixed device palette that
+gates a GPU run is phase 4 of chip_smoke.py (SMOKE_TRIALS there).
 """
 
 from __future__ import annotations
@@ -90,57 +85,13 @@ def _in_reference_envelope(vals: np.ndarray, block: int) -> bool:
 
 
 #: --device mode draws (F, n, block) from this fixed palette: every unique
-#: shape costs a full XLA trace+compile (seconds to minutes each), so
-#: unbounded random shapes make a device soak compile-bound and it never
-#: finishes. Random DATA still covers the semantics; shape-dependent
-#: routing is covered by tools/tpu_size_matrix.py.
+#: shape costs a full XLA trace+compile, so unbounded random shapes make a
+#: device soak compile-bound and it never finishes. Random DATA still
+#: covers the semantics; the 1M- and 3.2M-value frames exercise deep trees.
 DEVICE_SHAPES = [(1, 144, 12), (3, 144, 12), (2, 1000, 12), (4, 1000, 16),
                  (2, 4096, 12), (1, 4095, 12),
-                 # big enough that u32/i32 dtypes exceed the VMEM budget
-                 # and take the TILED kernels on real hardware (the other
-                 # randomized tiled coverage is interpret-mode only);
-                 # ~12 s of pycodec per hit, so exactly one palette entry
-                 (1, 3_200_000, 12),
-                 # the routing FRONTIER: 1M values sits untiled for
-                 # encode but tiled for decode (pallas_ok 40 MB vs
-                 # pallas_ok_decode 8 MB thresholds), mixing the kernel
-                 # pairs within one round trip
-                 (1, 1_048_576, 12)]
-
-
-#: --smoke tier (VERDICT r4 weak #4): a FIXED, seeded, <2-minute device
-#: pass covering every shape class in the round-4 regression ledger —
-#: mandatory after ANY kernel-structure change (tools/tpu_revalidate.sh
-#: runs it first; interpret-mode suite green does NOT prove Mosaic
-#: lowering, see the S==1 sublane-roll episode, commit ffcb465).
-#: Columns: (dtype, F, n, block, kind, seed).
-SMOKE_TRIALS = [
-    # S==1 grid trap: n=4095 u32 hits C=128 at the phase-2 transition
-    (np.uint32, 1, 4095, 12, 1, 101),
-    (np.int32, 1, 4095, 12, 0, 102),
-    # flagship whole-frame kernels, multi-frame, hot pixels
-    (np.uint16, 4, 512 * 512, 12, 0, 103),
-    (np.int16, 2, 512 * 512, 12, 1, 104),
-    # tiled kernels on real hardware (u32/i32 exceed the VMEM budget)
-    (np.uint32, 1, 3_200_000, 12, 1, 105),
-    (np.int32, 1, 3_200_000, 12, 0, 106),
-    # routing frontier: untiled encode + tiled decode in one trip
-    (np.uint32, 1, 1_048_576, 12, 0, 107),
-    (np.uint32, 1, 1_048_576, 12, 2, 108),
-    # small shapes, both signedness, partial blocks, odd block sizes
-    (np.uint8, 3, 144, 12, 3, 109),
-    (np.uint16, 2, 1000, 12, 2, 110),
-    (np.int16, 2, 1000, 12, 1, 111),
-    (np.uint16, 4, 1000, 16, 0, 112),
-    (np.int8, 2, 4096, 12, 1, 113),
-    (np.uint32, 2, 4096, 12, 1, 114),
-    # repeat-header stress (constant/zero runs) on the frontier shapes
-    (np.uint32, 1, 3_200_000, 12, 2, 115),
-    (np.uint16, 4, 512 * 512, 12, 2, 116),
-    # ramps crossing block boundaries
-    (np.uint32, 2, 4096, 12, 3, 117),
-    (np.uint16, 2, 512 * 512, 12, 3, 118),
-]
+                 # ~12 s of pycodec per hit, so one palette entry each
+                 (1, 3_200_000, 12), (1, 1_048_576, 12)]
 
 
 def _gen_values(dtype, F, n, kind, rng):
@@ -177,31 +128,18 @@ def _rand_frames(rng: np.random.Generator, fixed_shapes: bool = False):
 
 def main() -> int:
     use_device = "--device" in sys.argv
-    smoke = "--smoke" in sys.argv
     pos = [a for a in sys.argv[1:] if not a.startswith("--")]
-    n_trials = len(SMOKE_TRIALS) if smoke else (int(pos[0]) if pos else 1000)
+    n_trials = int(pos[0]) if pos else 1000
     have_oracle = _build_oracle()
     have_native = native.available()
-    if use_device or smoke:
-        # env alone loses the backend race to TPU plugins on some boxes;
-        # pin via jax.config BEFORE anything initializes a backend
-        import jax
-
-        jax.config.update(
-            "jax_platforms", os.environ.get("JAX_PLATFORMS", "cpu") or "cpu")
+    if use_device:
         from trpx_tpu import ops
-        use_device = True
     rng_master = np.random.default_rng(int(os.environ.get("SEED", 2026)))
     oracle_checked = 0
     for t in range(n_trials):
-        if smoke:
-            dt, F, n, block, kind, seed = SMOKE_TRIALS[t]
-            rng = np.random.default_rng(seed)
-            vals = _gen_values(np.dtype(dt), F, n, kind, rng)
-        else:
-            seed = int(rng_master.integers(0, 2**31))
-            rng = np.random.default_rng(seed)
-            vals, block = _rand_frames(rng, fixed_shapes=use_device)
+        seed = int(rng_master.integers(0, 2**31))
+        rng = np.random.default_rng(seed)
+        vals, block = _rand_frames(rng, fixed_shapes=use_device)
         ctx = f"trial {t} seed {seed} dtype {vals.dtype} F,n={vals.shape} block {block}"
         try:
             ref = pycodec.encode(list(vals), block=block)

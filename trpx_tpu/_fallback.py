@@ -1,10 +1,10 @@
 """One-shot fallback warnings for perf-critical degradations.
 
-Several routing points degrade gracefully to a slower-but-correct path
-(jnp tree instead of Pallas, Python walk instead of the native C++
-walker, worst-case capacities instead of a measured schedule). Silent
+Host-side helpers degrade gracefully to a slower-but-correct path (the
+pure-Python codec or walk when the native C++ library cannot be built,
+a real header walk when a sidecar's tables fail validation). Silent
 degradation turns an environment regression into an unexplained perf
-drop (VERDICT r3 weak #6), so every such fallback funnels through
+drop, so every such fallback funnels through
 :func:`warn_once` — one RuntimeWarning per site per process, carrying
 the triggering exception.
 """

@@ -42,27 +42,11 @@ _TIF_EXTS = {".tif", ".tiff", ".TIF", ".TIFF"}
 
 
 def _configure_jax() -> None:
-    """Make the CLI responsive: honor JAX_PLATFORMS even when a TPU plugin
-    would otherwise win the default-backend race, and turn on the persistent
-    compilation cache so repeated invocations skip XLA compiles."""
-    import jax
+    """Turn on the persistent compilation cache so repeated invocations
+    skip XLA compiles (runtime/compile_cache.py)."""
+    from ..runtime.compile_cache import enable_compile_cache
 
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        try:
-            jax.config.update("jax_platforms", plat)
-        except Exception:
-            pass
-    cache = os.environ.get(
-        "TRPX_JAX_CACHE", os.path.expanduser("~/.cache/trpx_tpu/jax")
-    )
-    if cache and cache != "0":
-        try:
-            os.makedirs(cache, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        except Exception:
-            pass
+    enable_compile_cache()
 
 
 # The process umask, read ONCE at import (the import lock serializes
@@ -173,11 +157,11 @@ def _encode_streaming(src: Path, args) -> tuple[int, int]:
         )
     w, h = ts.dims
     dst = _out_path(src, ".trpx", args.out_dir)
-    use_host = args.host or not api._accel_backend()
-    enc = StreamingEncoder(dst, nvalues=w * h,
-                           dtype=ts.infos[0].dtype.newbyteorder("="),
-                           block=args.block, dimensions=(w, h),
-                           backend="host" if use_host else "device")
+    dtype = ts.infos[0].dtype.newbyteorder("=")
+    enc = StreamingEncoder(
+        dst, nvalues=w * h, dtype=dtype, block=args.block, dimensions=(w, h),
+        backend=api.route(dtype, sum(i.nbytes for i in ts.infos),
+                          device=False if args.host else None))
     start = enc.frames_done  # resume point if a manifest exists
     for lo in range(start, len(ts), args.chunk_frames):
         chunk = ts.read(lo, min(len(ts), lo + args.chunk_frames))
@@ -591,7 +575,7 @@ def _concat_files(args) -> int:
 def main(argv=None) -> int:
     """``trpx`` — umbrella command: encode / decode / info."""
     p = argparse.ArgumentParser(prog="trpx",
-                                description="TPU-native TRPX codec")
+                                description="TRPX codec")
     sub = p.add_subparsers(dest="cmd", required=True)
     enc = sub.add_parser("encode", help="compress TIFF files to .trpx")
     _common_flags(enc)
@@ -698,7 +682,7 @@ def _bench_e2e(args, frames) -> None:
             dst, nvalues=w * h,
             dtype=ts.infos[0].dtype.newbyteorder("="),
             dimensions=(w, h), sync_every_chunk=False,
-            backend="device" if api._accel_backend() else "host")
+            backend=api.route(frames.dtype, frames.nbytes))
         for lo in range(0, len(ts), args.chunk_frames):
             chunk = ts.read(lo, min(len(ts), lo + args.chunk_frames))
             enc.add_frames(chunk.reshape(chunk.shape[0], -1))

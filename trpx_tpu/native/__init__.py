@@ -53,16 +53,29 @@ def _build() -> Path | None:
             suffix=".so", dir=d, delete=False
         ) as tmp:
             tmp_path = Path(tmp.name)
-        cmd = [
-            os.environ.get("CXX", "g++"), "-std=c++20", "-O3", "-shared",
-            "-fPIC", "-march=native", "-fopenmp", str(_SRC), "-o",
-            str(tmp_path),
-        ]
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp_path, so)  # atomic: concurrent builders race safely
-        return so
-    except (subprocess.CalledProcessError, FileNotFoundError, OSError):
+    except OSError:
         return None
+    # $CXX first, then the system g++: a toolchain named by $CXX may
+    # lack OpenMP's runtime (no libgomp.spec), which g++ has
+    err = b""
+    for cxx in dict.fromkeys(c for c in (os.environ.get("CXX"), "g++") if c):
+        cmd = [cxx, "-std=c++20", "-O3", "-shared", "-fPIC", "-march=native",
+               "-fopenmp", str(_SRC), "-o", str(tmp_path)]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True)
+            os.replace(tmp_path, so)  # atomic: concurrent builders race
+            return so
+        except subprocess.CalledProcessError as e:
+            err = e.stderr
+        except OSError as e:
+            err = str(e).encode()
+    tmp_path.unlink(missing_ok=True)
+    from .._fallback import warn_once
+
+    warn_once("native.build", None,
+              "pure-Python codec; compiler said: "
+              + err.decode(errors="replace")[-500:])
+    return None
 
 
 def _load() -> ctypes.CDLL | None:

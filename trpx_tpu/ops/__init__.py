@@ -1,11 +1,6 @@
-"""Device compute path: Pallas VMEM kernels + the jnp merge/split trees.
+"""Device compute path: the jnp merge/split trees, compiled by XLA for the
+backend jax runs on (``api.route`` decides when this path is taken)."""
 
-``encode``/``decode`` pick the Pallas kernels on TPU and the jnp trees on
-other backends automatically; ``pallas_pack``/``pallas_unpack`` expose the
-kernels directly (with ``interpret=True`` for CPU testing).
-"""
-
-from . import pallas_pack, pallas_unpack
 from .coding import (
     FrameSpec,
     assemble_archive,
@@ -26,6 +21,4 @@ __all__ = [
     "encode_batch_device",
     "measured_spec",
     "plan_frame",
-    "pallas_pack",
-    "pallas_unpack",
 ]

@@ -1,26 +1,28 @@
-"""TPU device path: vectorized TRPX encode/decode in JAX (XLA-fusable jnp).
+"""Device path: vectorized TRPX encode/decode in plain JAX, compiled by XLA
+for whatever backend jax runs on (the GPU in production, the CPU in tests).
 
-Design (TPU-first, not a translation of the C++ serial bit loop):
+Design (not a translation of the C++ serial bit loop):
 
 Encode (per frame, all static shapes, runs under ``jit``/``vmap``):
-  1. per-block OR-reduce of magnitudes -> significant-bit widths (VPU)
+  1. per-block OR-reduce of magnitudes -> significant-bit widths
   2. header bits/values from ``width != prev`` (elementwise)
-  3. scatter-free ragged bit-concat of the per-block strings via the
-     merge-tree pack (ops/pack.py) — pure elementwise/slice work; XLA
-     scatter is avoided entirely (it serializes on TPU)
+  3. ragged bit-concat of the per-block strings via the merge-tree pack
+     (ops/pack.py) — elementwise/slice work only
 
-Decode: given per-block widths + payload offsets (from the host header walk,
-or from the encoder's own plan), every value is an independent gather of two
-words + shift/mask — fully parallel.
+Decode: the host header walk yields per-block widths; the split tree
+(ops/unpack.py) cuts the stream back into per-block rows and extracts the
+values. ``decode_batch_direct`` is the O(n) alternative: payload offsets
+from a device cumsum, then every value is an independent gather of two
+words + shift/mask.
 
 The serial bitstream of the reference (Bit_pointer.hpp append/get loops,
 Terse.hpp:500-549,352-389) is replaced by this offset-table decomposition;
 bit-for-bit output equality is property-tested against format/pycodec.py and
 the compiled reference binary.
 
-Supported device dtypes: (u)int8/16/32. 64-bit frames take the host path
-(format/pycodec.py) — TPUs have no native 64-bit lanes and the reference
-itself is broken beyond 32 bits (SURVEY B6).
+Supported device dtypes: (u)int8/16/32. 64-bit frames take the host codec
+(native/, format/pycodec.py): the device tables are 32-bit lanes, and the
+reference itself is broken beyond 32 bits (SURVEY B6).
 """
 
 from __future__ import annotations
@@ -79,35 +81,6 @@ class FrameSpec:
         return self.nb * self.block
 
     @property
-    def n_staged(self) -> int:
-        """Input size the Pallas natural-layout path DMAs per frame: the
-        real-value rows of the (L, R*B) grid, 8-row aligned. Padding a
-        batch to THIS size (not tree_rows*block) lets the kernel skip
-        the pure-zero tail rows of the pow2 block grid — up to 1.5x of
-        the input DMA (512² u16: 393,216 -> 270,336 values) — while the
-        kernel concats the zero rows in VMEM. Always >= n_padded, so
-        every other encoder accepts it unchanged. (Big frames' TILED
-        staging width is n_staged_tiled — kept separate: changing THIS
-        width destabilized the jnp tree's XLA-CPU compile at 4K,
-        round 5.)"""
-        P = self.tree_rows
-        L = min(128, P)
-        R = P // L
-        rows_needed = -(-self.n // (R * self.block))
-        rows = min(L, (rows_needed + 7) // 8 * 8)
-        return rows * R * self.block
-
-    @property
-    def n_staged_tiled(self) -> int:
-        """Values per frame in the TILED kernels' full (T, TILE_BLOCKS)
-        grid — the width to pad to when staging big frames into the
-        tiled kernel layout host-side (pallas_pack.stage_natural)."""
-        from .pallas_pack import TILE_BLOCKS
-
-        T = -(-self.nb // TILE_BLOCKS)
-        return T * TILE_BLOCKS * self.block
-
-    @property
     def worst_bits(self) -> int:
         return self.n_padded * self.max_width + self.nb * 12
 
@@ -150,53 +123,6 @@ class FrameSpec:
     def out_words(self) -> int:
         """Words in the encode output buffer (soft-capped final row)."""
         return min(self.n_words, self.pack_caps[-1] + 2)
-
-    @property
-    def pallas_ok(self) -> bool:
-        """True if the whole-frame VMEM merge tree fits on-chip.
-
-        The estimate (2 copies of the (P, cap, 128) state + the input
-        block) under-counts Mosaic's real scoped allocation by ~2.4x
-        (double-buffered input windows + split temporaries; measured:
-        2048x2048 u16 estimates 58 MB but needs 138 MB of the 128 MB
-        VMEM). The 40 MB threshold keeps ~2x slack; larger frames take
-        the tiled (F, T)-grid kernels.
-
-        Lower bound: the kernel lays blocks on (R, 128) lane grids with
-        L = min(128, P); under one full lane row Mosaic lowering breaks
-        (a lane roll over a size-1 axis emits a 0-sized slice) and the
-        launch overhead dwarfs the work — tiny frames take the jnp
-        tree."""
-        from .pack import row_capacity
-
-        if self.tree_rows < 128:
-            return False
-        cap8 = -(-row_capacity(self.max_block_bits) // 8) * 8
-        state = self.tree_rows * cap8 * 4 * 2
-        inp = self.tree_rows * self.block * 4
-        return state + inp < 40 * 1024 * 1024
-
-    @property
-    def pallas_ok_decode(self) -> bool:
-        """Whole-frame VMEM split tree + extraction fits on-chip.
-
-        Decode's real footprint is larger than encode's for the same
-        estimate (double-buffered int32 output planes + full-width split
-        temporaries + extraction masks; measured: 1024x1024 u32
-        estimates 23 MB but needs 170 MB of 128 MB VMEM, while 512x512
-        u16 at 3.7 MB runs comfortably). Frames beyond the 8 MB estimate
-        decode through the tiled (F, T) kernels — same throughput class,
-        bounded VMEM. Lower bound as in pallas_ok: under one full lane
-        row the split tree's lane rolls break Mosaic lowering — tiny
-        frames take the jnp tree."""
-        from .pack import row_capacity
-
-        if self.tree_rows < 128:
-            return False
-        cap8 = -(-row_capacity(self.max_block_bits) // 8) * 8
-        state = self.tree_rows * cap8 * 4 * 2
-        inp = self.tree_rows * self.block * 4
-        return state + inp < 8 * 1024 * 1024
 
     def with_ratio(self, ratio: float) -> "FrameSpec":
         from dataclasses import replace
@@ -292,15 +218,11 @@ def encode_frame_device(spec: FrameSpec, frame: jax.Array):
     ``overflowed`` is constant False for ``cap_ratio == 1.0``; otherwise
     the caller must discard and re-encode with the full-capacity spec.
 
-    The bitstream is assembled with the scatter-free merge-tree pack
-    (ops/pack.py) — XLA scatter serializes on TPU, the tree is pure
-    elementwise/slice work.
+    The bitstream is assembled with the merge-tree pack (ops/pack.py).
     """
     from .pack import pack_frame
 
     B, nb = spec.block, spec.nb
-    if frame.shape[0] > nb * B:  # staged (n_staged) padding: tail is zero
-        frame = frame[: nb * B]
     plan = plan_frame(spec, frame)
     width, hb, hv = plan["width"], plan["hb"], plan["hv"]
 
@@ -330,30 +252,17 @@ def encode_batch_device(spec: FrameSpec, frames: jax.Array):
 
 def _pad_batch(frames: np.ndarray, spec: FrameSpec,
                bucket: bool = True) -> np.ndarray:
-    """Zero-pad values to the block grid and (optionally) the frame count
-    to the next power of two — per-frame outputs are independent, so the
-    callers simply ignore the padding frames, and jit recompiles are
-    bounded to log2 batch-shape buckets.
-
-    On a TPU backend, big frames that will route to the TILED kernels
-    pad to the tile grid (n_staged_tiled) so _best_encoder's host
-    staging applies; elsewhere the Lr-trimmed n_staged stands (the jnp
-    tree's XLA-CPU compile is unstable at the tiled 4K width —
-    round 5)."""
+    """Zero-pad values to the block grid (``spec.n_padded``) and
+    (optionally) the frame count to the next power of two — per-frame
+    outputs are independent, so the callers simply ignore the padding
+    frames, and jit recompiles are bounded to log2 batch-shape buckets."""
     F = frames.shape[0]
     Fp = F
     if bucket:
         Fp = 1
         while Fp < F:
             Fp *= 2
-    width = spec.n_staged
-    try:
-        if (spec.tree_rows >= 128 and not spec.pallas_ok
-                and jax.default_backend() == "tpu"):
-            width = spec.n_staged_tiled
-    except Exception:  # pragma: no cover - backend discovery failure
-        pass
-    out = np.zeros((Fp, width), dtype=frames.dtype)
+    out = np.zeros((Fp, spec.n_padded), dtype=frames.dtype)
     out[:F, : spec.n] = frames
     return out
 
@@ -370,7 +279,7 @@ DEFAULT_CAP_RATIO = "measured"
 def _encode_bucket_jit(spec, padded):
     """Module-level jitted capacity-bucket prepass: the trace cache is
     reused across encode() calls (a per-call jax.jit wrapper would retrace
-    every time — ADVICE r1)."""
+    every time)."""
     from .pack import encode_bucket_device
 
     global _ENCODE_BUCKET_FN
@@ -434,13 +343,13 @@ def encode(
         raise ValueError("frames must be 1-D, 2-D (batch) or 3-D (image stack)")
     F, n = frames.shape
     spec = FrameSpec.for_dtype(n, frames.dtype, block)
-    run = _best_encoder()
+    run = encode_batch_device
     padded = _pad_batch(frames, spec)
     if cap_ratio in ("auto", "measured") and F <= 8:
         # small batches (the 1-frame CLI case): the prepass's blocking
         # scalar fetch would dominate; go optimistic instead — the
         # overflow flag rides the same device_get as the outputs, so the
-        # happy path costs ONE round trip (VERDICT r1 weak #6)
+        # happy path costs ONE round trip
         cap_ratio = ENCODE_BUCKETS[0]
     if cap_ratio == "measured":
         # one small vector fetch proves a per-level measured schedule;
@@ -467,50 +376,6 @@ def encode(
     return assemble_archive(spec, words[:F], bits[:F], maxw[:F], dimensions)
 
 
-def _best_encoder():
-    """Pick the encode implementation for the default backend: the Pallas
-    VMEM kernel on TPU (3.4x the jnp tree, see bench.py), the jnp merge
-    tree elsewhere (CPU tests run the Pallas kernel separately in
-    interpreter mode) and for frames too large for the VMEM tree."""
-    try:
-        if jax.default_backend() == "tpu":
-            from .pallas_pack import (
-                encode_batch_pallas,
-                encode_batch_pallas_tiled,
-            )
-
-            def run(spec, frames):
-                if spec.tree_rows < 128:
-                    # tiny frames (< one lane row of blocks): jnp tree —
-                    # the Pallas layouts need a full 128-lane row
-                    return encode_batch_device(spec, frames)
-                wanted = (spec.n_staged if spec.pallas_ok
-                          else spec.n_staged_tiled)
-                if (isinstance(frames, np.ndarray) and frames.ndim == 2
-                        and frames.shape[1] == wanted
-                        and frames.flags.c_contiguous):
-                    # free host view into the kernel's natural layout
-                    # (_pad_batch emits exactly n_staged; whole-frame
-                    # AND tiled routes): the in-jit reshape is a full
-                    # relayout copy on TPU (pallas_pack.stage_natural)
-                    from .pallas_pack import stage_natural
-
-                    frames = stage_natural(spec, frames)
-                if spec.pallas_ok:
-                    return encode_batch_pallas(spec, frames)
-                # big frames (2K/4K detectors): per-tile VMEM packs with
-                # in-kernel DMA placement
-                return encode_batch_pallas_tiled(spec, frames)
-
-            return run
-    except Exception as e:
-        from .._fallback import warn_once
-
-        warn_once("ops.best_encoder", e,
-                  "jnp merge tree instead of the Pallas VMEM kernel")
-    return encode_batch_device
-
-
 def assemble_archive(
     spec: FrameSpec,
     words: np.ndarray,
@@ -525,7 +390,7 @@ def assemble_archive(
     total = int(np.sum(nbytes))
     payload = np.zeros(total, dtype=np.uint8)
     pos = 0
-    # device_get can hand back non-contiguous arrays (TPU layout padding)
+    # device_get can hand back non-contiguous arrays
     words = np.ascontiguousarray(words)
     byte_view = words.view(np.uint8).reshape(F, -1)  # little-endian words
     for f in range(F):
@@ -561,11 +426,6 @@ def narrow_values(vals: np.ndarray, dtype: np.dtype) -> np.ndarray:
     dtype = np.dtype(dtype)
     if vals.dtype == dtype:
         return vals
-    if vals.dtype == np.uint16:
-        # native u16 device output (unsigned <=16-bit targets)
-        return np.minimum(
-            vals, np.uint16(min(65535, np.iinfo(dtype).max))
-        ).astype(dtype)
     if dtype == np.int32:
         return vals
     if dtype.kind == "u":
@@ -649,11 +509,96 @@ def decode_frame_tree(spec: FrameSpec, words: jax.Array, widths: jax.Array):
 
 
 @functools.partial(jax.jit, static_argnums=0)
-def decode_batch_device(spec: FrameSpec, words, widths, poffs=None):
-    del poffs  # offsets are implied by the width tables in the tree unpack
+def decode_batch_device(spec: FrameSpec, words, widths):
+    """Split-tree decode of a (F, W) uint32 word batch with its (F, nb)
+    width tables -> (F, n_padded) int32 values (payload offsets follow
+    from the widths)."""
     return jax.vmap(lambda w, wd: decode_frame_tree(spec, w, wd))(
         words, widths
     )
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def decode_batch_direct(spec: FrameSpec, words, widths):
+    """Direct O(n) decode, same contract as :func:`decode_batch_device`:
+    each block's payload offset is a device cumsum of ``hb + width *
+    count`` (header length from the width chain, Terse.hpp:517-535), and
+    every value is a two-word gather + shift/mask
+    (:func:`decode_frame_device`). Measured against the split tree; not
+    a route yet."""
+    from .unpack import header_bits_from_widths
+
+    counts = jnp.clip(
+        spec.n - jnp.arange(spec.nb, dtype=_I32) * spec.block, 0, spec.block)
+
+    def one(w, wd):
+        wd = wd.astype(_I32)
+        hb = header_bits_from_widths(wd)
+        bits = hb + wd * counts
+        starts = jnp.cumsum(bits) - bits
+        return decode_frame_device(spec, w, wd, starts + hb)
+
+    return jax.vmap(one)(words, widths)
+
+
+def block_bits_host(spec: FrameSpec, widths: np.ndarray) -> np.ndarray:
+    """Exact per-block bit lengths (host numpy int64) from the walk's
+    (F, nb) width tables — header length from the frame-level repeat
+    chain (Terse.hpp:517-535) plus width × count payload."""
+    B = spec.block
+    F, nb = widths.shape
+    w = widths.astype(np.int64)
+    prev = np.concatenate([np.zeros((F, 1), np.int64), w[:, :-1]], axis=1)
+    hb = np.where(w == prev, 1, np.where(w < 7, 4, np.where(w < 10, 6, 12)))
+    counts = np.minimum(
+        B, np.maximum(0, spec.n - np.arange(nb, dtype=np.int64) * B)
+    )[None, :]
+    return hb + w * counts                                   # (F, nb)
+
+
+def _level_maxima(bits: np.ndarray, P: int) -> list[int]:
+    """Per-level max node bit-length for N trees of P blocks: level i =
+    the largest node of 2^(i+1) blocks (contiguous aligned groups)."""
+    N = bits.shape[0]
+    node = bits
+    cb = 1
+    out = []
+    while cb < P:
+        cb *= 2
+        node = node.reshape(N, P // cb, 2).sum(axis=2)
+        out.append(int(node.max(initial=0)))
+    return out
+
+
+def _tile_tables(spec: FrameSpec, widths: np.ndarray, Tb: int):
+    """Tables from the walk's width tables: per-tile total bits (F, T)
+    int64 over tiles of ``Tb`` blocks, and per-level node maxima (list of
+    log2(Tb) ints).
+
+    Routed to the native OpenMP helper when available — the numpy
+    block_bits -> pad -> reshape-sum -> level-reduce pipeline's int64
+    temporaries cost seconds per 2048² batch; the C pass is ~30 ms."""
+    try:
+        from .. import native
+
+        have = native.available()
+    except Exception as e:  # pragma: no cover - environment-dependent
+        from .._fallback import warn_once
+
+        warn_once("ops.tile_tables_native", e,
+                  "numpy prepass tables (~20x slower)")
+        have = False
+    if have:
+        return native.tile_tables(widths, spec.n, spec.block, Tb)
+    F, nb = widths.shape
+    T = -(-nb // Tb)
+    bits = block_bits_host(spec, widths)                    # (F, nb) int64
+    bits_p = bits
+    if T * Tb > nb:
+        bits_p = np.zeros((F, T * Tb), np.int64)
+        bits_p[:, :nb] = bits
+    tile_bits = bits_p.reshape(F, T, Tb).sum(axis=2)        # (F, T)
+    return tile_bits, _level_maxima(bits_p.reshape(F * T, Tb), Tb)
 
 
 def validate_tables(spec: FrameSpec, meta, wtab: np.ndarray,
@@ -694,8 +639,6 @@ def validate_tables(spec: FrameSpec, meta, wtab: np.ndarray,
         raise ValueError(
             "sidecar frame offsets are not a contiguous partition of "
             "the payload")
-    from .pallas_unpack import _tile_tables
-
     Tb = min(32768, 1 << max(0, int(spec.nb - 1).bit_length()))
     tb, _lm = _tile_tables(spec, np.ascontiguousarray(w, np.int32), Tb)
     nbytes = 1 + tb.sum(axis=1) // 8
@@ -805,7 +748,7 @@ def walk_archive(
         # by every branch above): repeated decodes of the same object are
         # walk-free, and the CLI writes the v2 sidecar from this cache
         # instead of re-walking (first-contact foreign archives walk
-        # exactly ONCE — VERDICT r3 weak #1)
+        # exactly ONCE)
         try:
             archive.width_table = widths[:F].astype(np.uint8)
             if fidx0 is None:
@@ -839,70 +782,6 @@ def walk_archive(
     return widths, poffs, words
 
 
-def _best_decoder():
-    """Pallas split-tree kernel on TPU (tiled when the frame outgrows
-    VMEM), the jnp split tree elsewhere. The returned callable takes an
-    optional static ``ratio``: sharded decode computes the proven capacity
-    bucket HOST-side before the shard_map launch (widths are traced inside
-    it) and passes it through."""
-    try:
-        if jax.default_backend() == "tpu":
-            from .pallas_unpack import (
-                choose_schedule,
-                decode_batch_pallas,
-                decode_tiled_host,
-            )
-
-            def run(spec, words, widths, poffs, ratio=None):
-                if spec.tree_rows < 128:
-                    # tiny frames: jnp tree (see pallas_ok lower bound)
-                    return decode_batch_device(spec, words, widths, poffs)
-                if spec.pallas_ok_decode:
-                    if ratio is None:
-                        # host-proven MEASURED capacity schedule (only
-                        # when widths are concrete; inside shard_map
-                        # they are traced)
-                        ratio = (
-                            choose_schedule(spec, widths)
-                            if isinstance(widths, np.ndarray) else 1.0
-                        )
-                    if (isinstance(widths, np.ndarray)
-                            and isinstance(words, np.ndarray)):
-                        # u8 width planes (1/4 the DMA) + both inputs
-                        # staged in the kernel layouts host-side: the
-                        # in-jit pads/reshapes are relayout copies
-                        from .pallas_unpack import stage_decode_inputs
-
-                        words, widths = stage_decode_inputs(
-                            spec, words, widths)
-                    elif isinstance(widths, np.ndarray):
-                        widths = widths.astype(np.uint8)
-                    return decode_batch_pallas(
-                        spec, jnp.asarray(words), jnp.asarray(widths),
-                        False, ratio,
-                    )
-                if isinstance(widths, np.ndarray):
-                    # big frames (2K/4K): per-tile VMEM split trees; the
-                    # prepass needs concrete tables, so traced widths
-                    # (inside shard_map) keep the jnp tree below
-                    return decode_tiled_host(spec, words, widths)
-                return decode_batch_device(spec, words, widths, poffs)
-
-            return run
-    except Exception as e:
-        from .._fallback import warn_once
-
-        warn_once("ops.best_decoder", e,
-                  "jnp split tree instead of the Pallas kernels")
-
-    def run_jnp(spec, words, widths, poffs, ratio=None):
-        del ratio  # the jnp tree clamps node capacities at the bucketed
-        #            stream size already
-        return decode_batch_device(spec, words, widths, poffs)
-
-    return run_jnp
-
-
 def decode(archive: TrpxArchive, dtype) -> np.ndarray:
     """Host wrapper: header walk (serial, host) + parallel device unpack.
     Returns (F, n) array of ``dtype``."""
@@ -928,13 +807,6 @@ def decode(archive: TrpxArchive, dtype) -> np.ndarray:
     Fp = 1
     while Fp < F:  # bucket the batch shape (bounds jit recompiles)
         Fp *= 2
-    widths, poffs, words = walk_archive(archive, spec, pad_frames_to=Fp)
-    run = _best_decoder()
-    out = jax.device_get(run(spec, words, widths, poffs))
-    # Pallas decoders return their block layout (possibly pair-packed
-    # uint32); the jnp tree returns (F, cols). flatten_decoded handles
-    # both for free on the host.
-    from .pallas_unpack import flatten_decoded
-
-    vals = flatten_decoded(out, meta.number_of_values)[:F]
-    return narrow_values(vals, dtype)
+    widths, _poffs, words = walk_archive(archive, spec, pad_frames_to=Fp)
+    out = jax.device_get(decode_batch_device(spec, words, widths))
+    return narrow_values(out[:F, : meta.number_of_values], dtype)

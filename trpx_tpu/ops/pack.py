@@ -1,10 +1,11 @@
-"""Scatter-free ragged bit-concat: the TPU-native packing primitive.
+"""Scatter-free ragged bit-concat: the device path's packing primitive.
 
 The TRPX bitstream is a concatenation of ~21k variable-length per-block
-bit strings per frame (header + packed values, SURVEY §2.1). A direct
-scatter of every field (XLA ``segment_sum``) serializes on TPU (~10^8
-scatter-elements/s measured — slower than the reference's single CPU
-core). This module instead builds the stream with a **binary merge tree**:
+bit strings per frame (header + packed values, SURVEY §2.1). The codebase
+was first written for a device whose scatter serialized, so instead of
+scattering every field this module builds the stream with a **binary
+merge tree** (the direct prefix-sum + scatter-add form, SURVEY §7, is the
+candidate to replace it on the GPU — ROADMAP G2):
 
   level 0: every block is a fixed-capacity word row ``(P, C0)`` holding its
            header+payload bits starting at bit 0, plus its bit length;
@@ -44,8 +45,8 @@ def row_capacity(max_block_bits: int) -> int:
 
 
 #: switch from transposed (C, P) to row-major (P, C) orientation once rows
-#: reach this many words — below it, the word axis is too small for the
-#: VPU's 128 lanes, so the big axis (P) must ride the lanes instead
+#: reach this many words — below it, the word axis is too narrow to be
+#: the minor (contiguous) axis, so the big axis (P) rides it instead
 _LANES = 128
 
 

@@ -1,4 +1,4 @@
-"""Scatter/gather-free ragged bit-split: the TPU-native unpacking primitive.
+"""Scatter/gather-free ragged bit-split: the device path's unpacking primitive.
 
 Inverse of ops/pack.py's merge tree. Given one frame's bitstream (uint32
 words, LSB-first) and the per-block widths recovered by the host header

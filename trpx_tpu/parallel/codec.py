@@ -9,7 +9,7 @@ reduction.
 
 Design (idiomatic JAX, not a translation):
 
-* one ``Mesh`` axis ``"frames"`` spanning all chips (ICI) and hosts (DCN);
+* one ``Mesh`` axis ``"frames"`` spanning every device of every process;
 * ``shard_map`` runs the per-frame device encoder on each shard with **zero
   communication in the hot path**;
 * the only collective is an ``all_gather`` of the per-frame compressed byte
@@ -40,10 +40,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..format.header import TrpxMeta
 from ..format.pycodec import TrpxArchive
-from ..format.spec import DEFAULT_BLOCK, frame_nbytes
+from ..format.spec import DEFAULT_BLOCK
 from ..ops.coding import (
     FrameSpec,
-    encode_frame_device,
+    decode_batch_device,
+    encode_batch_device,
+    measured_spec,
+    narrow_values,
     walk_archive,
 )
 
@@ -67,17 +70,8 @@ def _encode_sharded_jit(spec: FrameSpec, mesh: Mesh, frames: jax.Array):
     device cumsum would silently wrap for archives over 2 GiB.
     """
 
-    from ..ops.coding import _best_encoder
-
-    encoder = _best_encoder()  # Pallas VMEM kernel on TPU, jnp tree on CPU
-
     def local_encode(frames_local):
-        words, bits, maxw, over = encoder(spec, frames_local)
-        if words.ndim == 3:
-            # Pallas encoder returns its (F, S, 128) word grid; this
-            # path's rank-2 out_specs pay the on-device flatten (the
-            # single-chip paths keep the grid and flatten host-free)
-            words = words.reshape(words.shape[0], -1)
+        words, bits, maxw, over = encode_batch_device(spec, frames_local)
         nbytes_local = 1 + bits // 8  # Terse.hpp:547 terminal-byte rule
         # the one collective: all-gather the per-frame size table; every
         # device (and every process) then holds the replicated global
@@ -101,7 +95,7 @@ def _encode_sharded_jit(spec: FrameSpec, mesh: Mesh, frames: jax.Array):
 
 def _offsets_from_sizes(nbytes: np.ndarray) -> tuple[np.ndarray, int]:
     """Exclusive int64 cumsum of the per-frame byte sizes -> (offsets,
-    total). Host-side so >2 GiB archives can't wrap int32 (ADVICE r1)."""
+    total). Host-side so >2 GiB archives can't wrap int32."""
     nbytes = np.asarray(nbytes, dtype=np.int64)
     offsets = np.zeros_like(nbytes)
     np.cumsum(nbytes[:-1], out=offsets[1:])
@@ -135,16 +129,7 @@ class ShardedCodec:
         a caller-provided cap_sched is respected as-is."""
         if self.spec.cap_sched is not None:
             return self.spec
-        try:
-            from ..ops.coding import measured_spec
-
-            return measured_spec(self.spec, x)
-        except Exception as e:
-            from .._fallback import warn_once
-
-            warn_once("parallel.measured_schedule", e,
-                      "encoding with unmeasured worst-case capacities")
-            return self.spec
+        return measured_spec(self.spec, x)
 
     def pad_frames(self, frames: np.ndarray) -> tuple[np.ndarray, int]:
         """Pad (F, n) to (F', n_padded): F' a multiple of the mesh size,
@@ -153,7 +138,7 @@ class ShardedCodec:
         if n != self.spec.n:
             raise ValueError(f"frames have {n} values, spec says {self.spec.n}")
         Fp = -(-F // self.ndev) * self.ndev
-        out = np.zeros((Fp, self.spec.n_staged), dtype=frames.dtype)
+        out = np.zeros((Fp, self.spec.n_padded), dtype=frames.dtype)
         out[:F, : self.spec.n] = frames
         return out, F
 
@@ -202,11 +187,11 @@ class ShardedCodec:
                 f"× {nproc} processes (every process must pass the same "
                 "F_local; pad the tail host with zero frames)"
             )
-        padded = np.zeros((F_local, self.spec.n_staged), frames_local.dtype)
+        padded = np.zeros((F_local, self.spec.n_padded), frames_local.dtype)
         padded[:, : self.spec.n] = frames_local
         # globally the batch is (F_local * nproc, n_padded), frame-sharded;
         # each process contributes its addressable slice
-        global_shape = (F_local * nproc, self.spec.n_staged)
+        global_shape = (F_local * nproc, self.spec.n_padded)
         sharding = NamedSharding(self.mesh, P(AXIS, None))
         ndev_local = max(1, self.ndev // nproc)
         per_dev = -(-F_local // ndev_local)
@@ -284,58 +269,21 @@ class ShardedCodec:
         # serial header walk (SURVEY §7 hard part 3) — native C++ when built
         widths, _poffs, words = walk_archive(archive, self.spec,
                                              pad_frames_to=Fp)
-        # proven capacity bucket, computed host-side from the walk tables
-        # BEFORE the shard_map launch (widths are traced inside it), so
-        # sharded decode runs the same bucketed kernel as single-chip
-        ratio = _proven_ratio(self.spec, widths)
         vals = jax.device_get(
             _decode_sharded_jit(
                 self.spec,
                 self.mesh,
                 self._shard(words, P(AXIS, None)),
                 self._shard(widths, P(AXIS, None)),
-                ratio,
             )
         )[:F, : meta.number_of_values]
-        from ..ops.coding import narrow_values
-
         return narrow_values(vals, dtype)
 
 
-def _proven_ratio(spec, widths: np.ndarray):
-    """Host-side proven decode capacity schedule, computed from the walk
-    tables BEFORE the shard_map launch (widths are traced inside it) and
-    passed through as a static (1.0 when Pallas is not in play — the jnp
-    tree sizes itself from the bucketed stream)."""
-    try:
-        if jax.default_backend() == "tpu" and spec.pallas_ok_decode:
-            from ..ops.pallas_unpack import choose_schedule
-
-            return choose_schedule(spec, widths)
-    except Exception as e:
-        from .._fallback import warn_once
-
-        warn_once("parallel.proven_ratio", e,
-                  "sharded decode at worst-case capacities")
-    return 1.0
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 4))
-def _decode_sharded_jit(spec, mesh, words, widths, ratio=1.0):
-    from ..ops.coding import _best_decoder
-
-    decoder = _best_decoder()  # Pallas split tree on TPU, jnp on CPU
-
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def _decode_sharded_jit(spec, mesh, words, widths):
     def local(words_l, widths_l):
-        out = decoder(spec, words_l, widths_l, None, ratio=ratio)
-        # Pallas decoders return their block layout (possibly
-        # pair-packed uint32); shard_map's rank-2 out_specs need the
-        # flat value view, so THIS path pays the on-device
-        # flatten/bitcast relayouts (the single-chip paths flatten for
-        # free on the host — pallas_unpack.flatten_decoded)
-        if out.dtype == jnp.uint32:
-            out = jax.lax.bitcast_convert_type(out, jnp.uint16)
-        return out.reshape(out.shape[0], -1)
+        return decode_batch_device(spec, words_l, widths_l)
 
     return shard_map(
         local,

@@ -27,22 +27,29 @@ from ..ops.coding import FrameSpec
 
 
 def init_from_env() -> bool:
-    """Initialize jax.distributed from standard env vars if present.
+    """Initialize jax.distributed from the launcher's env vars if present.
 
-    Returns True if a multi-process runtime was initialized. Controller
-    address/process count/process id come from JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID (or the cloud-TPU auto-detection).
+    Returns True if a multi-process runtime was initialized. Coordinator
+    address, process count and process id come from
+    JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID.
+    JAX_LOCAL_DEVICE_IDS (comma-separated) pins the process to those
+    local devices: a launcher that starts one process per card on a
+    multi-card host sets it, since each process would otherwise open —
+    and reserve memory on — every card of the host.
     """
     import jax
 
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
     nproc = os.environ.get("JAX_NUM_PROCESSES")
     pid = os.environ.get("JAX_PROCESS_ID")
+    ids = os.environ.get("JAX_LOCAL_DEVICE_IDS")
     if coord and nproc and pid:
         jax.distributed.initialize(
             coordinator_address=coord,
             num_processes=int(nproc),
             process_id=int(pid),
+            local_device_ids=([int(i) for i in ids.split(",")]
+                              if ids else None),
         )
         return True
     return False
@@ -371,7 +378,7 @@ def recover_shard(path, frames_local: np.ndarray, frame_lo: int) -> None:
     import jax
 
     from ..ops.coding import FrameSpec as FS
-    from ..ops.coding import _best_encoder
+    from ..ops.coding import encode_batch_device
 
     with open(str(path) + ".runmanifest") as f:
         m = json.load(f)
@@ -385,16 +392,13 @@ def recover_shard(path, frames_local: np.ndarray, frame_lo: int) -> None:
         )
     spec = FS.for_dtype(m["nvalues"], dtype, m["block"], cap_ratio=0.5)
     F_local = frames_local.shape[0]
-    # stage exactly like the main encode path (ShardedCodec.pad_frames /
-    # encode_shards pad to n_staged): the kernels' input contract is the
-    # staging width, not the tree width n_padded
-    padded = np.zeros((F_local, spec.n_staged), dtype)
+    padded = np.zeros((F_local, spec.n_padded), dtype)
     padded[:, : spec.n] = frames_local
-    run = _best_encoder()
-    words, bits, maxw, over = jax.device_get(run(spec, padded))
+    words, bits, maxw, over = jax.device_get(
+        encode_batch_device(spec, padded))
     if spec.soft and bool(np.any(over)):
         words, bits, maxw, over = jax.device_get(
-            run(spec.with_ratio(1.0), padded)
+            encode_batch_device(spec.with_ratio(1.0), padded)
         )
     nbytes = 1 + np.asarray(bits, np.int64) // 8
     lo, hi = frame_lo, min(frame_lo + F_local, m["n_frames"])

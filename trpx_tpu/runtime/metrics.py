@@ -4,7 +4,7 @@ The reference's only observability is two chrono timers and a compression
 percentage under ``-verbose`` (terse.cpp:37-39,94-102). Here every pipeline
 stage is timed (ingest / H2D / kernel / D2H / assemble / write), and the
 report carries the BASELINE.json metrics: frames/s, GB/s of raw data vs the
-chip's HBM speed of light, compression ratio, and scaling efficiency.
+card's HBM bandwidth, compression ratio, and scaling efficiency.
 """
 
 from __future__ import annotations
@@ -14,12 +14,12 @@ import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
-#: HBM speed-of-light per chip, GB/s (public figures)
+#: Published HBM bandwidth per card, GB/s, keyed by the exact
+#: ``device_kind`` JAX reports (NVIDIA H100 data sheet). A kind missing
+#: here has no known peak: RunReport reports no share for it.
 HBM_GBS = {
-    "TPU v5 lite": 819.0,   # v5e
-    "TPU v5p": 2765.0,
-    "TPU v4": 1228.0,
-    "TPU v6 lite": 1640.0,  # v6e / Trillium
+    "NVIDIA H100 80GB HBM3": 3350.0,  # SXM5
+    "NVIDIA H100 PCIe": 2000.0,
 }
 
 
